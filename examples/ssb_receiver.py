@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """SSB voice receiver: a suppressed-carrier upper-sideband signal at
 2 Msps, demodulated to 48 kHz audio by the fully block-parallel SSB
-chain (chains/ssb.py: fused channel filter + decimate on the MXU ->
+chain (chains/ssb.py: fused channel filter + decimate as a matmul ->
 chunk-parallel AGC -> Hilbert sideband split; no PLL anywhere), with
 rssi telemetry per block and the wrong sideband rejected.
 

@@ -4,7 +4,7 @@ The reference has zero tests (SURVEY.md section 4); this module is the
 from-scratch golden spec: a direct, slow, sample-at-a-time float64
 re-implementation of each liquid-dsp primitive's *documented/intended*
 semantics, written down from the behavior recorded in SURVEY.md section 2.
-Every TPU kernel in tpudsp/kernels is validated against these loops to
+Every kernel in tpudsp/kernels is validated against these loops to
 >= 60 dB SNR (BASELINE.md) and to block-invariance under arbitrary splits.
 
 These loops intentionally share no code with tpudsp/kernels (different
@@ -271,7 +271,7 @@ class FreqDemOracle:
 # reference resampler.hpp; shapes-planned reformulation per SURVEY.md Q4/Q8)
 # ---------------------------------------------------------------------------
 class ResampOracle:
-    """Sample-serial evaluation of the exact semantics the TPU kernel plans:
+    """Sample-serial evaluation of the exact semantics the kernel plans:
     output k at continuous input position p_k = tau + k/rate, window
     X[q : q+2m] (X = [2m-sample history, block]), polyphase bank selected by
     frac(p_k) with linear interpolation between adjacent banks."""

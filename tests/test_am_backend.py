@@ -1,12 +1,15 @@
 """Fused AM back end: exact combined scan vs the composed XLA stages, and
-the Pallas fused kernel vs the exact scan (interpret mode)."""
+the Pallas feedback-core kernel vs the exact scan (interpret mode on the
+CPU; tests/test_gpu_route.py compiles it for the card)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from tpudsp.kernels import agc as kagc
 from tpudsp.kernels import am_backend as kab
-from tpudsp.pallas.am_backend_scan import am_backend_chunked_pallas
+from tpudsp.kernels import iir as kiir
+from tpudsp.pallas.am_backend_scan import front_chunked_pallas
 from tests.util import snr_db
 
 
@@ -22,11 +25,28 @@ def _params(carrier=True):
     return kab.make_params(agcp, 0.5, 0.05, 0.95, carrier=carrier)
 
 
+def _kernel_back_end(p, x, chunk, warmup):
+    """Feedback core in the kernel, then the exact linear tail (DC tracker
+    + de-emphasis): the combined back end, 1 stream."""
+    st = jax.tree.map(lambda v: jnp.asarray(v)[None],
+                      kab.FrontState(kagc.agc_init(),
+                                     kab.PllState(jnp.float32(0.0),
+                                                  jnp.float32(0.0))))
+    _, (vr, _) = front_chunked_pallas(p, st, x[None, :], chunk=chunk,
+                                      warmup=warmup)
+    vr = vr[0]
+    _, dc = kiir.first_order_apply(1.0 - p.dc_rho, p.dc_rho,
+                                   jnp.float32(0.0), vr)
+    audio = (vr - dc * p.use_dc) * p.inv_mod
+    _, pcm = kiir.first_order_apply(p.deemph_b0, p.deemph_a,
+                                    jnp.float32(0.0), audio)
+    return pcm
+
+
 def test_exact_combined_matches_composed_stages():
     """The combined step must equal AGC -> PLL demod -> DC -> deemph run
     as separate exact kernels."""
     from tpudsp.kernels import ampmodem as kam
-    from tpudsp.kernels import iir as kiir
     x = jnp.asarray(_signal())
     p = _params()
     st = kab.init_state()
@@ -48,8 +68,7 @@ def test_pallas_fused_matches_exact():
     p = _params()
     st = kab.init_state()
     _, (pcm_exact, _) = kab.am_backend_exact(p, st, x)
-    _, (pcm_pal, _) = am_backend_chunked_pallas(p, st, x, chunk=1024,
-                                                warmup=4096, interpret=True)
+    pcm_pal = _kernel_back_end(p, x, chunk=4096, warmup=4096)
     settle = 8000
     assert snr_db(np.asarray(pcm_exact)[settle:],
                   np.asarray(pcm_pal)[settle:]) > 60.0
@@ -88,8 +107,6 @@ def test_front_chunked_pallas_batched_matches_exact():
     """Batched (C, L) Pallas front: every stream matches its own exact
     front scan (interpret mode; distinct carriers + message rates, and an
     L that is NOT a multiple of the chunk to exercise the pad fixup)."""
-    import jax
-    from tpudsp.pallas.am_backend_scan import front_chunked_pallas
     C, L = 3, 30000 - 128
     xs = np.stack([_signal(L, carrier_freq=0.001 * (c + 1)) for c in range(C)])
     p = _params()
@@ -98,8 +115,7 @@ def test_front_chunked_pallas_batched_matches_exact():
         pll=kab.PllState(jnp.zeros((C,), jnp.float32),
                          jnp.zeros((C,), jnp.float32)))
     front, (vr, modes) = front_chunked_pallas(p, st, jnp.asarray(xs),
-                                              chunk=1024, warmup=4096,
-                                              interpret=True)
+                                              chunk=4096, warmup=4096)
     settle = 8000
     st1 = kab.FrontState(kagc.agc_init(),
                          kab.PllState(jnp.float32(0.0), jnp.float32(0.0)))
@@ -119,8 +135,7 @@ def test_pallas_fused_no_carrier():
     p = _params(carrier=False)
     st = kab.init_state()
     _, (pcm_exact, _) = kab.am_backend_exact(p, st, x)
-    _, (pcm_pal, _) = am_backend_chunked_pallas(p, st, x, chunk=1024,
-                                                warmup=2048, interpret=True)
+    pcm_pal = _kernel_back_end(p, x, chunk=2048, warmup=2048)
     settle = 4000
     assert snr_db(np.asarray(pcm_exact)[settle:],
                   np.asarray(pcm_pal)[settle:]) > 60.0

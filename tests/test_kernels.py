@@ -379,7 +379,7 @@ def test_hilbert_interp_decim_roundtrip():
 
 
 def test_strided_cfir_wide_equals_blocked():
-    """The wide single-matmul front end (MXU-filling contraction) must
+    """The wide single-matmul front end (deep contraction) must
     equal the blocked per-phase formulation it replaces."""
     import jax.numpy as jnp
     from tpudsp.kernels import decimate as kdec
@@ -549,7 +549,7 @@ def test_first_order_df_near_unit_pole():
 
 
 def test_first_order_blocked_near_unit_pole():
-    """MXU-blocked first-order scan (round 5): >= 115 dB vs the f64
+    """Matmul-blocked first-order scan: >= 115 dB vs the f64
     serial recurrence at the DC tracker's rho = 0.9995 over 50k samples
     (measured 122.9 at L=32; the plain f32 scan floors at ~86), and the
     carried y_last continues an exactly split stream."""

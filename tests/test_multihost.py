@@ -3,9 +3,11 @@ jax.distributed with multiple local processes').
 
 Spawns two local processes that jax.distributed.initialize against each
 other on the CPU backend, build a shared 2-device mesh over the combined
-process devices, and run one psum -- validating the DCN init path that
-ShardedBank/ShardedScanner ride on a real pod slice. Skipped gracefully
-if the runtime refuses local multi-process init."""
+process devices, and run one psum -- validating the multi-process path
+that ShardedBank/ShardedScanner ride across several hosts. (On one GPU
+host a single process drives every card and needs no initialization;
+see tpudsp/parallel/multihost.py.) Skipped gracefully if the runtime
+refuses local multi-process init."""
 
 import os
 import socket

@@ -181,8 +181,7 @@ def test_ampmodem_matches_oracle(am_type, carrier):
     am = tpudsp.AmpModem(modulation=0.5, type=am_type, carrier=carrier)
     y_our = np.asarray(am(x), dtype=np.float64)
     settle = 20000 if carrier else 1000
-    # measured 112.3-141.3 dB (exact for dsb/carrier=False): the DC
-    # tracker runs the MXU-blocked compensated scan since round 5
-    # (FIDELITY.md section 1; df scan measured 118.5-150.8 but cost 16x
-    # the HLO, which gates relay loadability)
+    # measured 112.3-141.3 dB on the CPU (exact for dsb/carrier=False):
+    # the DC tracker runs the matmul-blocked compensated scan
+    # (FIDELITY.md section 1)
     assert snr_db(y_ref[settle:], y_our[settle:]) > 100.0

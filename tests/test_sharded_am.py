@@ -94,7 +94,3 @@ def test_sharded_am_wire_format_matches_converted(fmt):
         y_w = np.asarray(rx_w(w[b * n:(b + 1) * n]))
         got = snr_db(y_c, y_w)
         assert got > floor, (fmt, b, got)
-
-    with pytest.raises(ValueError, match="async"):
-        ShardedAMReceiver(cfg, make_mesh(1, 8), block_len=n,
-                          input_format=fmt, halo="async")

@@ -198,9 +198,9 @@ def _back_end(params: AMParams, state: AMState, baseband, cfg: AMConfig, exact: 
               backend: str = "xla"):
     """AGC -> AmpModem -> de-emphasis at the pcm rate.
 
-    backend='pallas' routes the feedback core through the single fused
-    VMEM kernel (tpudsp/pallas/am_backend_scan.py) instead of the two
-    separate XLA chunked scans; only valid with exact=False."""
+    backend='pallas' runs the feedback core (AGC + squelch + carrier PLL)
+    as one Pallas kernel (tpudsp/pallas/am_backend_scan.py) instead of
+    the two XLA chunked scans; only valid with exact=False."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown backend {backend!r} (use 'xla' or 'pallas')")
     if backend == "pallas" and exact:
@@ -212,29 +212,35 @@ def _back_end(params: AMParams, state: AMState, baseband, cfg: AMConfig, exact: 
         agc_alpha=cfg.agc_bandwidth,
         pll_bw=kam.PLL_BW if cfg.carrier else None,
         squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
-    if backend == "pallas" and warmup <= kwarm.PALLAS_WARMUP_MAX:
+    if backend == "pallas":
         from ..kernels import am_backend as kab
-        from ..pallas import enabled
-        from ..pallas.am_backend_scan import am_backend_chunked_pallas
+        from ..pallas.am_backend_scan import front_chunked_pallas
         p = kab.make_params(params.agc, params.mod, params.deemph_b0,
                             params.deemph_a, carrier=cfg.carrier)
-        st = kab.AmBackendState(agc=state.agc, pll=state.am.pll,
-                                dc=state.am.dc, deemph=state.deemph)
-        st, (pcm, modes) = am_backend_chunked_pallas(
-            p, st, baseband, warmup=warmup, interpret=not enabled())
-        am_state = kam.AmpDemodState(pll=st.pll, dc=st.dc, c2r=state.am.c2r)
-        return st.agc, am_state, st.deemph, pcm, modes
-    # (backend='pallas' with a warmup too large for VMEM falls through to
-    # the XLA chunked path -- same semantics, HBM-resident windows)
-    agc_fn = kagc.agc_apply if exact else partial(
-        kagc.agc_apply_chunked, chunk=kwarm.chunk_for(warmup), warmup=warmup)
-    agc_state, (z, modes) = agc_fn(params.agc, state.agc, baseband)
-    am_state, audio = kam.ampdemod_apply(
-        state.am, z, params.h_hilb, params.mod, "dsb", cfg.carrier,
-        exact_pll=exact)
+        st = jax.tree.map(lambda v: jnp.asarray(v)[None],
+                          kab.FrontState(state.agc, state.am.pll))
+        front, (vr, modes) = front_chunked_pallas(
+            p, st, baseband[None, :], chunk=kwarm.chunk_for(warmup),
+            warmup=warmup)
+        front = jax.tree.map(lambda v: v[0], front)
+        agc_state, vr, modes = front.agc, vr[0], modes[0]
+        dc = state.am.dc
+        audio = vr / params.mod
+        if cfg.carrier:
+            dc, dc_track = kiir.first_order_apply_blocked(
+                1.0 - kam.DC_RHO, kam.DC_RHO, dc, vr)
+            audio = (vr - dc_track) / params.mod
+        am_state = kam.AmpDemodState(pll=front.pll, dc=dc, c2r=state.am.c2r)
+    else:
+        agc_fn = kagc.agc_apply if exact else partial(
+            kagc.agc_apply_chunked, chunk=kwarm.chunk_for(warmup),
+            warmup=warmup)
+        agc_state, (z, modes) = agc_fn(params.agc, state.agc, baseband)
+        am_state, audio = kam.ampdemod_apply(
+            state.am, z, params.h_hilb, params.mod, "dsb", cfg.carrier,
+            exact_pll=exact)
     # de-emphasis coefficients re-derived at trace time (cfg is static):
-    # the MXU-blocked scan needs Python floats and lowers to ~1/8 the
-    # associative scan's HLO (program size gates relay loadability)
+    # the blocked scan takes them as Python floats
     b0_de, a_de = iirdes.deemphasis_coeffs(cfg.pcm_rate)
     d_state, pcm = kiir.first_order_apply_blocked(
         b0_de, a_de, state.deemph, audio)
@@ -275,7 +281,7 @@ def am_step_fused(params: AMParams, state: AMState, iq, *, cfg: AMConfig,
                   exact: bool = False, backend: str = "xla"):
     """Fused front end: bandpass+anti-alias+decimate evaluated only at
     output points (output k = j*P + r at input offset j*Q + floor(r*Q/P))
-    as P blocked MXU matmuls (tpudsp/kernels/decimate.py). iq may be (N,)
+    as P blocked matmuls (tpudsp/kernels/decimate.py). iq may be (N,)
     complex64 or (N, 2) raw int16 when built with input_format='i16'.
     Returns (state, (pcm, BlockMetrics))."""
     P, Q = _rational(cfg.rate)
@@ -307,8 +313,8 @@ class AMReceiver:
 
     plan='fused' | 'composed'; exact=True uses the exact sequential
     AGC/PLL scans (for verification), exact=False the chunk-parallel ones
-    (throughput; default). backend='pallas' fuses the whole feedback core
-    into one VMEM kernel (pallas/am_backend_scan.py)."""
+    (throughput; default). backend='pallas' runs the whole feedback core
+    as one Pallas kernel (pallas/am_backend_scan.py)."""
 
     def __init__(self, cfg: AMConfig = AMConfig(), block_len: int = 1_000_000,
                  plan: str = "fused", exact: bool = False, backend: str = "xla",

@@ -6,8 +6,8 @@ This is the DSP analog of data parallelism (SURVEY.md section 2.3): zero
 inter-channel communication, so channels batch on one chip and shard over
 the ``channel`` mesh axis.
 
-TPU-first structure -- the whole front end is TWO batched strided
-convolutions on the MXU:
+Structure -- the whole front end is TWO batched strided convolutions
+(matmuls):
 
   - The per-channel mix-down folds into the channel filter:
       conv(x * e^{-j w_c n}, h)[m] = e^{-j w_c m D} * conv(x, h * e^{+j w_c k})[m]
@@ -42,6 +42,7 @@ from ..kernels import ampmodem as kam
 from ..kernels import decimate as kdec
 from ..kernels import freqdem as kfd
 from ..kernels import iir as kiir
+from ..kernels import precision as kp
 from ..kernels import warmup as kwarm
 from ..kernels.pll import PllState
 from . import metrics as kmet
@@ -83,7 +84,7 @@ class BankConfig:
     # at unit gain; the discriminator needs chan_rate > 2*(dev + f_audio)
     # so per-sample phase steps stay below pi (no wrapping).
     kd: float = 0.3125
-    taps1: int = 128      # channel filter length (multiple of 8 for MXU)
+    taps1: int = 128      # channel filter length
     taps2: int = 64       # audio filter length
     # SSB sideband-split filter length (at the channel rate). The split
     # quality is set by this filter's transition width ~ (As-8)/(14.36 N)
@@ -95,7 +96,7 @@ class BankConfig:
     # Full coherent back end for the AM channels (AGC gain loop -> carrier
     # PLL -> DC tracker, the single-channel chain's kernels/am_backend.py)
     # instead of the bare envelope |y1|: batched over the AM channels via
-    # the warmup-chunk scans (XLA vmap or the fused Pallas VMEM kernel,
+    # the warmup-chunk scans (XLA vmap or the fused Pallas kernel,
     # ReceiverBank(backend=...)). Envelope stays the default: it is exact,
     # memoryless, and right for strong-signal broadcast scanning.
     am_coherent: bool = False
@@ -176,7 +177,7 @@ def build(cfg: BankConfig, input_format: str = "c64"):
     h1 = firdes.kaiser_lowpass(cfg.taps1, 0.45 / cfg.decim1, 60.0)
     w = np.array([TWO_PI * f / cfg.iq_rate for f in cfg.freqs])  # rad/sample
     # modulated taps h1[k] e^{+j w_c k}, flipped to correlation order and
-    # D1-blocked for the MXU matmul front end (kernels/decimate.py)
+    # D1-blocked for the matmul front end (kernels/decimate.py)
     hm = (h1[None, :] * np.exp(1j * w[:, None] * k[None, :]))[:, ::-1]
     if input_format == "i16":
         hm = hm * (1.0 / 32767.0)
@@ -274,7 +275,8 @@ def _audio_decimate(A, h2, D2, nj):
     Kc2 = h2.shape[0]
     M = nj + Kc2 - 1
     Am = A[:, : M * D2].reshape(C, M, D2)
-    Z = jnp.einsum("cmq,kq->cmk", Am, h2, preferred_element_type=jnp.float32)
+    Z = jnp.einsum("cmq,kq->cmk", Am, h2, preferred_element_type=jnp.float32,
+                   precision=kp.MATMUL)
     acc = Z[:, 0:nj, 0]
     for kk in range(1, Kc2):
         acc = acc + Z[:, kk:kk + nj, kk]
@@ -288,7 +290,7 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
 
     backend selects the engine for the coherent-AM feedback scans when
     cfg.am_coherent: 'xla' (vmapped warmup-chunk scans) or 'pallas' (the
-    fused VMEM kernel, pallas/am_backend_scan.front_chunked_pallas)."""
+    fused kernel, pallas/am_backend_scan.front_chunked_pallas)."""
     C = cfg.nchan
     D1, D2 = cfg.decim1, cfg.decim2
     K1, K2 = cfg.taps1, cfg.taps2
@@ -296,8 +298,8 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
     X = jnp.concatenate([state.in_tail, iq])  # (K1-1+N,) or (.., 2) i16
 
     # batched mix+channelize -> (C, N/D1) complex; the engine resolves
-    # per platform at trace time (wide MXU matmul on TPU, XLA's native
-    # strided conv on CPU -- kernels/decimate.cfir_engine)
+    # per platform at trace time (the wide matmul on the GPU, XLA's
+    # native strided conv on the CPU -- kernels/decimate.cfir_engine)
     nj1 = n // D1
     y1m = kdec.strided_cfir(X, params.taps_re, params.taps_im, D1, nj1)
     # output rotation: e^{-j w_c (n0 + m D1)} via uint32 phase lattice
@@ -338,26 +340,23 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
         idx = jnp.asarray(am_idx)
         y_am = y1[idx, :]
         # warmup from the live loop bandwidths (kernels/warmup.py), never
-        # a frozen constant; Pallas stages warmups in VMEM so very narrow
-        # loops route to the XLA chunked path
+        # a frozen constant
         w = kwarm.warmup_for(
             agc_alpha=cfg.agc_bandwidth, pll_bw=kam.PLL_BW,
             squelch_timeout=cfg.squelch_timeout if cfg.squelch else 0)
-        if backend == "pallas" and w <= kwarm.PALLAS_WARMUP_MAX:
-            from ..pallas import enabled
+        if backend == "pallas":
             from ..pallas.am_backend_scan import front_chunked_pallas
             front, (vr, sq_modes) = front_chunked_pallas(
-                params.amb, state.front, y_am, warmup=w,
-                interpret=not enabled())
+                params.amb, state.front, y_am, chunk=kwarm.chunk_for(w),
+                warmup=w)
         else:
             front, (vr, sq_modes) = jax.vmap(
                 lambda s, xs: kab.front_chunked(
                     params.amb, s, xs, chunk=kwarm.chunk_for(w), warmup=w)
             )(state.front, y_am)
-        # rho = 0.9995 pole: MXU-blocked scan with double-float block
+        # rho = 0.9995 pole: matmul-blocked scan with double-float block
         # carry (plain f32 floors at ~86 dB, FIDELITY.md; blocked
-        # measures 110.6 dB vs f64 serial and lowers to ~6% of the
-        # associative df scan's HLO)
+        # measures 110.6 dB vs f64 serial)
         dc, dct = jax.vmap(
             lambda d0, v: kiir.first_order_apply_blocked(
                 1.0 - kam.DC_RHO, kam.DC_RHO, d0, v)
@@ -390,7 +389,7 @@ def bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
             params.ssb_mask[:, None], audio_ssb, audio)
         y1_tail = Yf[:, -(K2s - 1):]
 
-    # de-emphasis: MXU-blocked first-order scan vmapped over channels
+    # de-emphasis: matmul-blocked first-order scan vmapped over channels
     # (coefficients re-derived at trace time -- cfg is static)
     b0_de, a_de = iirdes.deemphasis_coeffs(cfg.audio_rate)
     deemph, audio = jax.vmap(

@@ -23,6 +23,7 @@ from jax import lax
 from ..design import firdes, iirdes
 from ..kernels import freqdem as kfd
 from ..kernels import iir as kiir
+from ..kernels import precision as kp
 from ..kernels import pll as kpll
 from ..kernels import nco as knco
 from .bank import BankConfig, ReceiverBank
@@ -81,13 +82,14 @@ def _stereo_step(params, state: StereoState, iq, *, cfg: StereoConfig):
             feats = feats - jnp.float32(127.5)
     else:
         feats = jnp.stack([X.real, X.imag]).astype(jnp.float32)
-    y = lax.conv_general_dilated(feats[None], h1, (D1,), "VALID")[0]
+    y = lax.conv_general_dilated(feats[None], h1, (D1,), "VALID",
+                                 precision=kp.MATMUL)[0]
     comp_iq = (y[0] + 1j * y[1]).astype(jnp.complex64)
     fd_prev, s = kfd.freqdem_apply(jnp.float32(cfg.kd), state.fd_prev, comp_iq)
     pilot, lr, (pilot_level, pilot_freq) = kpll.stereo_pilot_apply(
         state.pilot, s, dtheta_u, with_metrics=True)
     aud_tail, (left, right) = kpll.stereo_matrix_lowpass(h_aud, state.aud_tail, s, lr)
-    # MXU-blocked de-emphasis at the composite rate (coefficients
+    # matmul-blocked de-emphasis at the composite rate (coefficients
     # re-derived at trace time; cfg is static -- params copies stay for
     # compat)
     b0_de, a_de = iirdes.deemphasis_coeffs(cfg.iq_rate / cfg.decim1)
@@ -101,8 +103,11 @@ def _stereo_step(params, state: StereoState, iq, *, cfg: StereoConfig):
     half = D2 // 2
     def dec_audio(tail, xs):
         A = jnp.concatenate([tail, xs])
-        o0 = lax.conv_general_dilated(A[None, None], h2[0][None, None], (D2,), "VALID")[0, 0]
-        o1 = lax.conv_general_dilated(A[None, None, half:], h2[1][None, None], (D2,), "VALID")[0, 0]
+        o0 = lax.conv_general_dilated(A[None, None], h2[0][None, None], (D2,),
+                                      "VALID", precision=kp.MATMUL)[0, 0]
+        o1 = lax.conv_general_dilated(A[None, None, half:], h2[1][None, None],
+                                      (D2,), "VALID",
+                                      precision=kp.MATMUL)[0, 0]
         n = min(o0.shape[0], o1.shape[0])
         out = jnp.stack([o0[:n], o1[:n]], 1).reshape(-1)
         return A[-(h2.shape[1] - 1):], out

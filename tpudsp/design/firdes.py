@@ -12,7 +12,7 @@ demod.hpp:105,163):
 
 All design math runs once, eagerly, at construction time in float64
 (mirroring the reference's design-at-construction call stack, SURVEY.md
-section 3.2) and returns float32 tap arrays for the TPU kernels.
+section 3.2) and returns float32 tap arrays for the device kernels.
 """
 
 from __future__ import annotations

@@ -140,10 +140,10 @@ def sos_impulse_response(
     response has not decayed below ``tol`` (relative tail energy) within
     ``max_len`` samples.
 
-    This backs the TPU-native LTI-IIR execution mode: a stable IIR is
+    This backs the block-parallel LTI-IIR execution mode: a stable IIR is
     numerically indistinguishable (to float32) from its truncated impulse
     response, which executes as a fully parallel overlap-save convolution on
-    the MXU/FFT path instead of a sequential recurrence (SURVEY.md section 7
+    the FFT path instead of a sequential recurrence (SURVEY.md section 7
     design decision 3/4). Exactness vs. the true recurrence is bounded by the
     discarded tail energy (<= tol, default ~130 dB down)."""
     sos = np.asarray(sos, dtype=np.float64)

@@ -1,11 +1,11 @@
 // Native IQ ingest for tpudsp.
 //
-// TPU-native equivalent of the reference's only data-path native code
+// Equivalent of the reference's only data-path native code
 // (bytes_to_iq, /root/reference/src/utility.hpp:61-69) plus the streaming
 // infrastructure the reference leaves to the Python radio callback
 // (README.md:53-58): a lock-free single-producer/single-consumer ring
 // buffer so a real-time radio driver thread can hand fixed-size IQ blocks
-// to the TPU feed thread without the GIL or allocations on the hot path.
+// to the device feed thread without the GIL or allocations on the hot path.
 //
 // Exposed via a C ABI and loaded with ctypes (no pybind11 in this image).
 

@@ -6,8 +6,8 @@ coupled recurrences over the same 48 kHz stream. Composing their chunked
 kernels runs the warmup+chunk sample loop three times with HBM round
 trips between stages; this module defines the combined single-pass
 step -- used by the exact lax.scan reference here and by the fused Pallas
-kernel (tpudsp/pallas/am_backend_scan.py) that keeps the whole loop in
-VMEM.
+kernel (tpudsp/pallas/am_backend_scan.py) that keeps the loop state in
+registers.
 
 Per sample (x complex input at the pcm rate):
     y      = x * g                        (AGC gain)
@@ -33,10 +33,10 @@ import jax.numpy as jnp
 
 # NOTE on atan2 choice: these per-sample steps run inside sequential
 # scans over SMALL lane vectors (the chunk count), where one fused libm
-# atan2 per step beats fastmath.patan2's longer elementwise op chain --
-# measured: the fused AM chain lost ~20% end-to-end with patan2 here.
-# patan2 wins only on the wide elementwise paths (freqdem, fm_base);
-# the Pallas twins pass it explicitly because Mosaic has no atan2.
+# atan2 per step beat fastmath.patan2's longer elementwise op chain
+# (measured on the CPU: the fused AM chain lost ~20% end to end with
+# patan2 here). patan2 wins on the wide elementwise paths (freqdem,
+# fm_base). The Pallas kernel's Triton route lowers libm atan2 too.
 
 from . import agc as kagc
 from .agc import AgcParams, AgcState, _fsm_step
@@ -143,9 +143,9 @@ def front_sample_step(p: AmBackendParams, st: FrontState, xr, xi,
     The DC tracker and de-emphasis are linear filters of vr with no
     feedback into this loop -- and the DC tracker's time constant
     (1/(1-rho) ~ 2000 samples) exceeds practical warmup windows -- so they
-    run OUTSIDE the sequential kernel as exact block-parallel first-order
-    scans (see pallas/am_backend_scan.py); only the fast-memory feedback
-    states live in the chunked loop."""
+    run OUTSIDE the sequential loop as exact block-parallel first-order
+    scans (see pallas/am_backend_scan.py); only the feedback states live
+    in the chunked loop."""
     g, y2p, mode, timer = st.agc
     theta, freq = st.pll
     yr = xr * g
@@ -193,14 +193,3 @@ def front_chunked(p: AmBackendParams, st: FrontState, x,
     bcast = lambda s, n: jax.tree.map(lambda v: jnp.broadcast_to(v, (n,)), s)
     sel = lambda f: jax.tree.map(lambda v: v[-1], f)
     return _chunked_scan(fn, bcast, sel, st, x, chunk, warmup)
-
-
-def linear_tail(p: AmBackendParams, dc0, de0, vr):
-    """Exact block-parallel DC tracker + de-emphasis over vr (first-order
-    associative scans). Returns ((dc_last, de_last), pcm)."""
-    from . import iir as kiir
-    dc_last, dc_track = kiir.first_order_apply(
-        1.0 - p.dc_rho, p.dc_rho, dc0, vr)
-    audio = (vr - dc_track * p.use_dc) * p.inv_mod
-    de_last, pcm = kiir.first_order_apply(p.deemph_b0, p.deemph_a, de0, audio)
-    return (dc_last, de_last), pcm

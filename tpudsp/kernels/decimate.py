@@ -1,19 +1,18 @@
-"""Strided (decimating) FIR as an MXU matmul (TPU-first).
+"""Strided (decimating) FIR as a blocked matmul.
 
 The fused receiver front ends evaluate long FIR filters only at decimated
 output points: y_r[j] = sum_i X[off_r + j*Q + i] * taps_r[i], stride Q,
-P phases. Lowering this as lax.conv with a multi-thousand-tap kernel makes
-XLA's TPU conv path both slow to compile and slow to run; the natural MXU
-formulation is a blocked matmul:
+P phases. Instead of a lax.conv with a multi-thousand-tap kernel, the
+filter runs as a blocked matmul:
 
     pad taps to Kc*Q;  T_r[c, q] = taps_r[c*Q + q]            (Kc, Q)
     Xt_r = X[off_r : off_r + M*Q].reshape(M, Q)               (M, Q)
     Z_r  = Xt_r @ T_r^T                                       (M, Kc)
     y_r[j] = sum_c Z_r[j + c, c]        (diagonal sum: Kc shifted slices)
 
-One (M x Q) @ (Q x Kc) matmul per phase feeds the 128x128 systolic array
-(Q = decimation factor ~ 125 rides the contraction dim); the diagonal sum
-is Kc cheap vector adds. Complex input decomposes into re/im real matmuls.
+One (M x Q) @ (Q x Kc) matmul per phase (Q = decimation factor ~ 125
+rides the contraction dim); the diagonal sum is Kc cheap vector adds.
+Complex input decomposes into re/im real matmuls.
 """
 
 from __future__ import annotations
@@ -22,6 +21,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from . import precision as kp
 
 
 def plan_phase_taps(taps_per_phase: np.ndarray, Q: int):
@@ -44,13 +45,16 @@ def strided_fir_matmul(X, T, offsets, Q: int, nj: int):
         Xr = lax.dynamic_slice(X, (offsets[r],), (M * Q,)).reshape(M, Q)
         if jnp.iscomplexobj(X):
             Zr = jnp.einsum("mq,kq->mk", Xr.real, T[r],
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=kp.MATMUL)
             Zi = jnp.einsum("mq,kq->mk", Xr.imag, T[r],
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=kp.MATMUL)
             Z = Zr + 1j * Zi
         else:
             Z = jnp.einsum("mq,kq->mk", Xr, T[r],
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32,
+                           precision=kp.MATMUL)
         acc = Z[0:nj, 0]
         for c in range(1, Kc):
             acc = acc + Z[c:c + nj, c]
@@ -128,7 +132,8 @@ def _shared_grid_matmul(Xm, T, nj: int):
     order (output k = j*P + r at row [j, r])."""
     P, Kc2, _ = T.shape
     Z = jnp.einsum("mq,pkq->pmk", Xm, T,
-                   preferred_element_type=jnp.float32)   # (P, M, Kc2)
+                   preferred_element_type=jnp.float32,
+                   precision=kp.MATMUL)   # (P, M, Kc2)
     acc = Z[:, 0:nj, 0]
     for c in range(1, Kc2):
         acc = acc + Z[:, c:c + nj, c]
@@ -215,12 +220,14 @@ def fused_frontend_apply_i16(taps, tail, iq2, offsets, Q: int, nj: int):
     for r in range(P):
         Xr = lax.dynamic_slice(X, (offsets[r], 0), (M * Q, 2))
         F = Xr.reshape(M, Q, 2)
-        # the i16->f32 convert is a unary on the dot operand (fuses into
-        # the MXU load); no separate complex64 input buffer ever exists
+        # the i16->f32 convert is a unary on the dot operand (XLA fuses
+        # it into the operand read); no complex64 input buffer exists
         Zr = jnp.einsum("mq,kq->mk", F[..., 0].astype(jnp.float32), taps[r],
-                        preferred_element_type=jnp.float32)
+                        preferred_element_type=jnp.float32,
+                        precision=kp.MATMUL)
         Zi = jnp.einsum("mq,kq->mk", F[..., 1].astype(jnp.float32), taps[r],
-                        preferred_element_type=jnp.float32)
+                        preferred_element_type=jnp.float32,
+                        precision=kp.MATMUL)
         acc_r = Zr[0:nj, 0]
         acc_i = Zi[0:nj, 0]
         for c in range(1, Kc):
@@ -234,10 +241,10 @@ def fused_frontend_apply_i16(taps, tail, iq2, offsets, Q: int, nj: int):
 
 def strided_cfir_matmul_wide(X, Tre, Tim, Q: int, nj: int):
     """Same contract as strided_cfir_matmul, reformulated as ONE wide
-    matmul for MXU utilization.
+    matmul.
 
-    The blocked scheme contracts over q (= Q ~ 10) -- a sliver of the
-    128-deep systolic contraction. Here the Kc shifted frame slices are
+    The blocked scheme contracts over q (= Q ~ 10), a sliver of a
+    matrix unit's depth. Here the Kc shifted frame slices are
     concatenated into explicit windows (im2col from the (M, Q) frame
     matrix -- no gather), and the complex product is packed into one real
     matmul:
@@ -246,9 +253,9 @@ def strided_cfir_matmul_wide(X, Tre, Tim, Q: int, nj: int):
         TT = [[Tre, Tim], [-Tim, Tre]]      (2*K1, 2*C)
         [yr | yi] = W @ TT                  (nj, 2*C)
 
-    Contraction depth 2*K1 (256 for the default 128-tap bank) fills the
-    MXU; the window materialization costs Kc x the input bytes, which is
-    far below the blocked scheme's (C, M, Kc) x4 intermediates."""
+    Contraction depth 2*K1 (256 for the default 128-tap bank); the window
+    materialization costs Kc x the input bytes, which is far below the
+    blocked scheme's (C, M, Kc) x4 intermediates."""
     C, Kc, Q_ = Tre.shape
     K1 = Kc * Q_
     M = nj + Kc - 1
@@ -263,7 +270,8 @@ def strided_cfir_matmul_wide(X, Tre, Tim, Q: int, nj: int):
     TT = jnp.concatenate(
         [jnp.concatenate([Tr, Ti], axis=1),
          jnp.concatenate([-Ti, Tr], axis=1)], axis=0)  # (2*K1, 2*C)
-    Y = jnp.dot(W, TT, preferred_element_type=jnp.float32)
+    Y = jnp.dot(W, TT, preferred_element_type=jnp.float32,
+                precision=kp.MATMUL)
     return (Y[:, :C].T + 1j * Y[:, C:].T).astype(jnp.complex64)
 
 
@@ -271,8 +279,8 @@ def strided_cfir_matmul_wide_i16(X2, Tre, Tim, Q: int, nj: int):
     """strided_cfir_matmul_wide for RAW interleaved int16 input: X2 is
     (L, 2) int16 [re, im] wire samples and Tre/Tim carry the 1/32767
     scale pre-folded. The im2col window matrix stays int16 until the dot
-    operand (2 B/component HBM traffic instead of 4), with the convert
-    riding the MXU load. Returns (C, nj) complex64."""
+    operand (2 B/component device-memory traffic instead of 4), with the
+    convert fused into the operand read. Returns (C, nj) complex64."""
     C, Kc, Q_ = Tre.shape
     K1 = Kc * Q_
     M = nj + Kc - 1
@@ -287,7 +295,8 @@ def strided_cfir_matmul_wide_i16(X2, Tre, Tim, Q: int, nj: int):
     TT = jnp.concatenate(
         [jnp.concatenate([Tr, Ti], axis=1),
          jnp.concatenate([-Ti, Tr], axis=1)], axis=0)  # (2*K1, 2*C)
-    Y = jnp.dot(W, TT, preferred_element_type=jnp.float32)
+    Y = jnp.dot(W, TT, preferred_element_type=jnp.float32,
+                precision=kp.MATMUL)
     return (Y[:, :C].T + 1j * Y[:, C:].T).astype(jnp.complex64)
 
 
@@ -313,7 +322,8 @@ def strided_cfir_matmul_wide_u8(X2, Tre, Tim, Q: int, nj: int):
     TT = jnp.concatenate(
         [jnp.concatenate([Tr, Ti], axis=1),
          jnp.concatenate([-Ti, Tr], axis=1)], axis=0)  # (2*K1, 2*C)
-    Y = jnp.dot(W, TT, preferred_element_type=jnp.float32)
+    Y = jnp.dot(W, TT, preferred_element_type=jnp.float32,
+                precision=kp.MATMUL)
     # wr_true = br/127.5 - 1, wi_true = bi/127.5 - 1 applied to the packed
     # product: y_r -= sum(Tre) - sum(Tim); y_i -= sum(Tre) + sum(Tim)
     # (original-tap sums; the taps here are pre-scaled by 1/127.5)
@@ -341,7 +351,8 @@ def _cfir_conv_core(xr, xi, Tre, Tim, Q: int, nj: int):
          jnp.stack([ti, tr], axis=1)], axis=0)           # (2C, 2, K1)
     Y = lax.conv_general_dilated(
         lhs, rhs, (Q_,), "VALID",
-        dimension_numbers=("NCH", "OIH", "NCH"))          # (1, 2C, nj)
+        dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=kp.MATMUL)                              # (1, 2C, nj)
     return Y[0, :C], Y[0, C:]
 
 
@@ -349,8 +360,8 @@ def strided_cfir_conv(X, Tre, Tim, Q: int, nj: int):
     """strided_cfir_matmul_wide's contract through XLA's native strided
     convolution (the CPU engine: Eigen's conv path beats both matmul
     formulations ~2-9x there; measured C=16/K=128/2M-sample block: conv
-    52 ms vs blocked 454 ms vs wide 998 ms on this image's CPU). On TPU
-    the wide matmul remains the designed path -- see cfir_engine()."""
+    52 ms vs blocked 454 ms vs wide 998 ms on a CPU). On the GPU the wide
+    matmul wins -- see cfir_engine()."""
     xr = X.real.astype(jnp.float32)
     xi = X.imag.astype(jnp.float32)
     yr, yi = _cfir_conv_core(xr, xi, Tre, Tim, Q, nj)
@@ -383,18 +394,28 @@ def strided_cfir_conv_u8(X2, Tre, Tim, Q: int, nj: int):
     return (yr + 1j * yi).astype(jnp.complex64)
 
 
+# 'auto' engine per platform, measured on the bank front end: XLA:CPU's
+# strided conv beats both matmul forms 2-9x on the CPU; on an H100 SXM
+# (700 W) the wide matmul beats cuDNN's conv (16-channel bank, 8M-sample
+# block: 63 vs 91 ms per step in c64, 56 vs 74 ms in u8; WBFM mono, 2M
+# samples: 15 vs 23 ms)
+AUTO_ENGINE = {"cpu": "conv", "gpu": "wide"}
+
+
 def cfir_engine(engine: str = "auto") -> str:
     """Resolve the bank front-end engine: 'conv' | 'wide' | 'auto'.
 
     'auto' (the default everywhere) picks by the process backend at
-    trace time: XLA:CPU's native strided-conv path wins by 2-9x there,
-    while on TPU the wide matmul's 2*K1-deep contraction fills the MXU
-    (conv would contract over the 2 input features only). Override with
-    TPUDSP_CFIR_ENGINE=conv|wide for measurements."""
+    trace time (AUTO_ENGINE); a backend with no measured choice is an
+    error. Override with TPUDSP_CFIR_ENGINE=conv|wide for measurements."""
     import os
     eng = os.environ.get("TPUDSP_CFIR_ENGINE", engine)
     if eng == "auto":
-        eng = "conv" if jax.default_backend() == "cpu" else "wide"
+        backend = jax.default_backend()
+        if backend not in AUTO_ENGINE:
+            raise ValueError(f"no measured cfir engine for backend "
+                             f"{backend!r}; pass engine='conv' or 'wide'")
+        eng = AUTO_ENGINE[backend]
     if eng not in ("conv", "wide"):
         raise ValueError(f"unknown cfir engine {eng!r}")
     return eng
@@ -416,7 +437,7 @@ def strided_cfir(X, Tre, Tim, Q: int, nj: int, engine: str = "auto"):
 
 
 def strided_cfir_matmul(X, Tre, Tim, Q: int, nj: int):
-    """Multi-channel complex-taps strided FIR as blocked MXU matmuls
+    """Multi-channel complex-taps strided FIR as blocked matmuls
     (the receiver-bank front end: per-channel modulated taps, one shared
     input stream).
 
@@ -430,10 +451,14 @@ def strided_cfir_matmul(X, Tre, Tim, Q: int, nj: int):
     xr = Xm.real.astype(jnp.float32)
     xi = Xm.imag.astype(jnp.float32)
     # (M, Q) x (C, Kc, Q) -> (C, M, Kc); 4 real matmuls for complex result
-    zrr = jnp.einsum("mq,ckq->cmk", xr, Tre, preferred_element_type=jnp.float32)
-    zii = jnp.einsum("mq,ckq->cmk", xi, Tim, preferred_element_type=jnp.float32)
-    zri = jnp.einsum("mq,ckq->cmk", xr, Tim, preferred_element_type=jnp.float32)
-    zir = jnp.einsum("mq,ckq->cmk", xi, Tre, preferred_element_type=jnp.float32)
+    zrr = jnp.einsum("mq,ckq->cmk", xr, Tre, preferred_element_type=jnp.float32,
+                     precision=kp.MATMUL)
+    zii = jnp.einsum("mq,ckq->cmk", xi, Tim, preferred_element_type=jnp.float32,
+                     precision=kp.MATMUL)
+    zri = jnp.einsum("mq,ckq->cmk", xr, Tim, preferred_element_type=jnp.float32,
+                     precision=kp.MATMUL)
+    zir = jnp.einsum("mq,ckq->cmk", xi, Tre, preferred_element_type=jnp.float32,
+                     precision=kp.MATMUL)
     Zr = zrr - zii
     Zi = zri + zir
     accr = Zr[:, 0:nj, 0]

@@ -1,12 +1,10 @@
 """Vectorized transcendental replacements for the hot demod paths.
 
 XLA:CPU lowers jnp.arctan2 to per-element libm calls (measured 66 ms
-for 2M points on this image — 28x the polynomial below), and the Mosaic
-TPU lowering has no atan2 primitive at all ("Unimplemented primitive
-... atan2").  patan2 is the single implementation both paths share: a
+for 2M points on a CPU — 28x the polynomial below). patan2 is a
 minimax odd-polynomial approximation of atan on [0, 1] plus octant
-reconstruction, pure jnp elementwise ops, so it vectorizes on CPU,
-fuses on TPU, and lowers through Pallas/Mosaic unchanged.
+reconstruction, pure jnp elementwise ops, so it vectorizes on the CPU
+and fuses into the surrounding elementwise work on the GPU.
 
 Max abs error ~2e-6 rad.  For the consumers that matters as follows:
 an FM discriminator scales the phase error by 1/(2 pi kd), putting the
@@ -38,7 +36,7 @@ def _atan_unit(z):
 
 
 def patan2(y, x):
-    """atan2(y, x) -> (-pi, pi], elementwise, Pallas-TPU-lowerable.
+    """atan2(y, x) -> (-pi, pi], elementwise.
 
     Octant reduction: atan(|t|) on the unit interval with t = min/max of
     |x|,|y|, then swap/sign fixes. Matches jnp.arctan2 to ~2e-6 rad away

@@ -1,4 +1,4 @@
-"""Block-parallel IIR execution (JAX/XLA, TPU-first).
+"""Block-parallel IIR execution (JAX/XLA).
 
 Two execution modes for the liquid ``iirfilt_*`` equivalents (reference
 iirfilter.hpp:52-58, 292-298):
@@ -11,8 +11,8 @@ iirfilter.hpp:52-58, 292-298):
 2. truncated-impulse-response mode (see tpudsp/design/iirdes.py
    sos_impulse_response + tpudsp/kernels/fir.py): the LTI filter runs as a
    fully parallel overlap-save convolution. Ops choose this when the
-   impulse response decays within a budget; it is the TPU speed-of-light
-   path (no sequential dependence at all).
+   impulse response decays within a budget; it has no sequential
+   dependence at all.
 
 State convention: every function is pure, ``(params, state, x) -> (state, y)``
 with state an explicit pytree (SURVEY.md section 7 core decision 1).
@@ -31,6 +31,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from . import precision as kp
 
 
 def sos_init(sos: np.ndarray, dtype=jnp.float32):
@@ -59,10 +61,11 @@ def _biquad_scan(coef, v0, x):
     def combine(e1, e2):
         M1, u1 = e1
         M2, u2 = e2
-        return jnp.matmul(M2, M1), jnp.einsum("nij,nj->ni", M2, u1) + u2
+        return (jnp.matmul(M2, M1, precision=kp.MATMUL),
+                jnp.einsum("nij,nj->ni", M2, u1, precision=kp.MATMUL) + u2)
 
     Mp, up = jax.lax.associative_scan(combine, (M, u))
-    v = jnp.einsum("nij,j->ni", Mp, v0) + up            # v[n], n = 0..N-1
+    v = jnp.einsum("nij,j->ni", Mp, v0, precision=kp.MATMUL) + up  # v[n]
     v_prev = jnp.concatenate([v0[None, :], v[:-1]], 0)  # v[n-1]
     y = b0 * x + v_prev[:, 0]
     return v[-1], y
@@ -88,7 +91,7 @@ def sos_apply(sos, state, x):
 # log-depth). Representing every scan value as an UNEVALUATED f32 PAIR
 # (hi, lo) with error-free transforms (Dekker/Knuth) carries ~48
 # mantissa bits through the combine at f32 register width -- no float64
-# (emulated and slow on TPU) anywhere. ~20x the flops of the plain
+# anywhere. ~20x the flops of the plain
 # combine, still fully parallel; this is the non-default fallback path
 # for impulse responses past the TIR budget, where it measures >110 dB
 # on the README's order-8 cheby2 (tests/test_kernels.py).
@@ -282,24 +285,20 @@ def first_order_apply_df(params_df, y_prev, x):
 
 def first_order_apply_blocked(b0: float, a: float, y_prev, x,
                               L: int = 32):
-    """MXU-blocked first-order scan: y[n] = b0 x[n] + a y[n-1].
+    """Matmul-blocked first-order scan: y[n] = b0 x[n] + a y[n-1].
 
-    The TPU-native formulation of the near-unit-pole recurrence (DC
-    tracker rho = 0.9995, de-emphasis): within an L-sample block the
-    inclusive prefix is ONE lower-triangular matmul against the a-power
-    kernel T[i, j] = b0 a^{i-j} (j <= i) -- generated from iota at
-    trace time, so the HLO carries no (L, L) constant blob -- and the
-    cross-block entry value is carried exactly-ish in (hi, lo)
-    double-float through a tiny sequential lax.scan (n/L steps).
+    The formulation of the near-unit-pole recurrence (DC tracker rho =
+    0.9995, de-emphasis): within an L-sample block the inclusive prefix
+    is ONE lower-triangular matmul against the a-power kernel
+    T[i, j] = b0 a^{i-j} (j <= i) -- generated from iota at trace time,
+    so the program carries no (L, L) constant -- and the cross-block
+    entry value is carried exactly-ish in (hi, lo) double-float through
+    a tiny sequential lax.scan (n/L steps).
 
-    Chosen over lax.associative_scan twins for BOTH reasons that matter
-    here (measured 2026-08-21, n = 6000): HLO text 147 kB (df scan) /
-    26 kB (f32 scan) -> ~3 kB, and the FLOPs land on the MXU instead of
-    a log-depth slice/concat cascade. Accuracy: f32 rounding is
-    confined WITHIN one L-block (error ~L eps: measured 129/123/117/111
-    dB at L=16/32/64/128 vs the f64 serial oracle at rho=0.9995 over
-    50k samples; default L=32 balances precision against MXU tile
-    utilization -- the plain f32 scan floors at ~86 dB), the long-range
+    Accuracy: f32 rounding is confined WITHIN one L-block (error ~L eps:
+    measured 129/123/117/111 dB at L=16/32/64/128 vs the f64 serial
+    oracle at rho=0.9995 over 50k samples, on the CPU; default L=32 --
+    the plain f32 associative scan floors at ~86 dB), the long-range
     accumulation runs in double-float, and a^L is split from float64.
 
     b0, a MUST be static Python floats (fold design-time coefficients
@@ -319,7 +318,8 @@ def first_order_apply_blocked(b0: float, a: float, y_prev, x,
     powers = jnp.float32(a) ** (i + 1.0)
     U = xp.reshape(B, L)
     Yin = jnp.einsum("bl,il->bi", U, T,
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=kp.MATMUL)
     S = Yin[:, -1]
     aL = np.float64(a) ** L
     aL_hi = jnp.float32(aL)
@@ -348,9 +348,8 @@ def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x,
     -- the precision class of the f32 associative scan it replaces,
     which is all the pilot smoothers need (rho = 0.999, phase estimate
     normalized to unit magnitude downstream); the df carry is for the
-    near-unit REAL poles with >= 100 dB pins. HLO: ~4 kB vs the
-    associative scan's log-depth slice/pad cascade (~60 kB per cascade
-    at N = 125k). b0, a static Python floats; x: (N,) complex64."""
+    near-unit REAL poles with >= 100 dB pins. b0, a static Python
+    floats; x: (N,) complex64."""
     b0 = float(b0)
     a = float(a)
     n = x.shape[-1]
@@ -363,7 +362,8 @@ def first_order_apply_blocked_c64(b0: float, a: float, y_prev, x,
     powers = (jnp.float32(a) ** (i + 1.0)).astype(jnp.complex64)
     U = xp.reshape(B, L)
     Yin = jnp.einsum("bl,il->bi", U, T.astype(jnp.complex64),
-                     preferred_element_type=jnp.complex64)
+                     preferred_element_type=jnp.complex64,
+                     precision=kp.MATMUL)
     S = Yin[:, -1]
     aL = jnp.complex64(np.float64(a) ** L)
 
@@ -388,7 +388,7 @@ def first_order_apply_blocked_mc(b0: float, a: float, y_prev, x,
     fused into the back end adds ~30 ms at M=2048, C=1024 on CPU).
 
     Within-block prefix is one (L, L) lower-triangular a-power matmul
-    against (B, L, C) blocks — an even better MXU shape than the vmapped
+    against (B, L, C) blocks — a larger matmul than the vmapped
     per-channel form — and the cross-block entry values carry in (hi, lo)
     double-float through a length-B lax.scan exactly as the 1-D kernel
     does (same precision class; equality with the vmapped twin is pinned
@@ -406,7 +406,8 @@ def first_order_apply_blocked_mc(b0: float, a: float, y_prev, x,
     powers = jnp.float32(a) ** (i + 1.0)
     U = xp.reshape(B, L, C)
     Yin = jnp.einsum("il,blc->bic", T, U,
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=kp.MATMUL)
     S = Yin[:, -1, :]                                   # (B, C)
     aL = np.float64(a) ** L
     aL_hi = jnp.float32(aL)

@@ -1,4 +1,4 @@
-"""NCO/VCO mixing with uint32 modular phase (JAX/XLA, TPU-first).
+"""NCO/VCO mixing with uint32 modular phase (JAX/XLA).
 
 Equivalent of liquid ``nco_crcf`` (reference nco.hpp:10-81). liquid keeps
 the oscillator phase in a 32-bit integer accumulator; we match that exactly

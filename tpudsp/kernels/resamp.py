@@ -1,7 +1,7 @@
 """Polyphase arbitrary-rate resampler (JAX/XLA, planned shapes).
 
 Equivalent of liquid ``resamp_{rrrf,crcf,cccf}`` (reference
-resampler.hpp:12,47,81,136), re-architected for TPU per SURVEY.md Q4/Q8:
+resampler.hpp:12,47,81,136), re-architected for block execution per SURVEY.md Q4/Q8:
 the reference discovers its output count sample-by-sample inside a C loop;
 here the count is *planned* -- it is a deterministic function of
 (block length N, rate, carried fractional phase tau), computed host-side

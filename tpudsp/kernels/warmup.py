@@ -27,8 +27,8 @@ coupled loops decay slower than their raw gains):
     decay rate beta/2 -> memory = 2/sqrt(bw) (3/sqrt(bw) with margin).
   - One-pole trackers (rho): memory = 1/(1-rho). NOTE: first-order LINEAR
     filters (DC tracker, de-emphasis) should run as exact associative
-    scans OUTSIDE the chunked loop (kernels/am_backend.linear_tail), not
-    be warmup-approximated -- pass dc_rho only for loops that genuinely
+    scans OUTSIDE the chunked loop (kernels/iir.first_order_apply_blocked),
+    not be warmup-approximated -- pass dc_rho only for loops that genuinely
     carry a one-pole inside the sequential feedback.
 """
 
@@ -43,11 +43,6 @@ FACTOR = 12.0
 AGC_MEMORY = 3.0   # samples x (1/alpha): measured decay exp(-alpha n / 3)
 PLL_MEMORY = 3.0   # samples x (1/sqrt(bw)): pole decay beta/2, with margin
 
-# the Pallas VMEM kernels stage (warmup, 128)-shaped f32 operands in VMEM;
-# beyond this window the XLA chunked path (HBM-resident windows) is used
-PALLAS_WARMUP_MAX = 6144
-
-
 def _round_up(n: int, q: int) -> int:
     return -(-int(n) // q) * q
 
@@ -59,8 +54,9 @@ def warmup_for(agc_alpha: float | None = None,
                factor: float = FACTOR,
                minimum: int = 256) -> int:
     """Warmup window (samples) covering every loop present, rounded up to
-    a multiple of 256 (sublane-friendly). Pass only the loops that are
-    actually inside the chunked scan."""
+    a multiple of 256 (a whole number of the Pallas kernel's unrolled
+    steps). Pass only the loops that are actually inside the chunked
+    scan."""
     need = float(minimum)
     if agc_alpha:
         need = max(need, factor * AGC_MEMORY / float(agc_alpha)

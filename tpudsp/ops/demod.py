@@ -171,7 +171,7 @@ class FMStereo(StatefulOp):
     separation (>=30 dB broadcast grade; the reference's Re(s e^{-2j theta})
     term is half-scale and measures ~1.4 dB even when force-locked).
 
-    TPU re-architecture (SURVEY.md section 3.4): every stage -- freqdem,
+    Block-parallel re-architecture (SURVEY.md section 3.4): every stage -- freqdem,
     pilot recovery, stereo matrix, de-emphasis, resamplers -- is block-
     parallel; there is no per-sample loop anywhere in this chain."""
 

@@ -5,7 +5,7 @@ RIIRFilter, RLowpassIIR, RHighpassIIR, RBandpassIIR, RBandstopIIR,
 ComplexIIRFilter, RealIIRFilter, DeemphasisFilter (iirfilter.hpp),
 RealFIRFilter, RealDCBlocker, RealKaiserBessel (firfilter.hpp).
 
-Execution is TPU-first: LTI IIR filters run by default as truncated-
+Execution is block-parallel: LTI IIR filters run by default as truncated-
 impulse-response overlap-save convolutions (fully parallel; exact to
 float32, see tpudsp/design/iirdes.py) and fall back to the associative-
 scan SOS cascade when the response decays too slowly; `mode=` overrides.

@@ -1,18 +1,19 @@
-"""Hand-written Pallas TPU kernels for the hot paths XLA doesn't already
-saturate. Each kernel has an XLA-path twin in tpudsp/kernels pinned by
-equivalence tests (interpret mode on CPU; compiled on TPU)."""
+"""Hand-written Pallas kernels for the hot paths XLA does not serve well.
 
-import jax
+Each kernel has an XLA twin in tpudsp/kernels pinned by equivalence tests.
+The route is chosen from the platform the computation is lowered for,
+never from the process default: CUDA compiles the kernel through Triton,
+CPU runs it in the Pallas interpreter (the tests), and any other platform
+is refused when the program is lowered."""
 
+from functools import partial
 
-def enabled() -> bool:
-    """True when a TPU backend is active (Pallas kernels compiled natively)."""
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
+from jax import lax
 
 
-from .agc_scan import agc_chunked_pallas  # noqa: E402,F401
-
-__all__ = ["agc_chunked_pallas", "enabled"]
+def on_platform(fn, *args):
+    """Call ``fn(*args, interpret=...)`` with the route for the lowering
+    platform: ``interpret=False`` (Triton) on CUDA, ``interpret=True`` on
+    CPU. No branch exists for other platforms, so lowering for one raises."""
+    return lax.platform_dependent(*args, cpu=partial(fn, interpret=True),
+                                  cuda=partial(fn, interpret=False))

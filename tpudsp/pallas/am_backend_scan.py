@@ -1,226 +1,180 @@
-"""Pallas TPU kernel: fused AM-chain back end.
+"""Pallas kernel (Triton route): the AM back end's feedback core.
 
-The back end's FEEDBACK core (AGC gain loop + squelch FSM + carrier PLL,
-kernels/am_backend.py front_sample_step) runs as one warmup+main scan per
-lane tile -- chunks on the 128 vector lanes, time steps sequential, all
-six feedback-state vectors resident in VMEM for the whole loop. The two
-LINEAR stages (DC tracker, de-emphasis) deliberately stay OUTSIDE the
-kernel: they are first-order filters of the kernel's vr output with no
-feedback into the loop, and the DC tracker's ~2000-sample memory exceeds
-any practical warmup window -- as exact block-parallel associative scans
-they cost nothing and carry their state exactly. (A fully-fused variant
-was measured at only ~2 dB against the exact reference for precisely this
-reason; this split restores >60 dB.)
+The feedback core (AGC gain loop + squelch FSM + carrier PLL,
+kernels/am_backend.front_sample_step) is a long serial recurrence over a
+few independent lanes. Lanes are (stream, chunk) pairs of the warmup-chunk
+scheme (kernels/am_backend.front_chunked is the XLA twin): chunk i of
+stream c re-derives its entry state from the `warmup` samples before it,
+then runs its `chunk` samples. XLA runs that as while loops with kernel
+launches on every step; here one program per block of LANES lanes runs
+the whole loop with the state in registers, in one launch.
 
-This replaces the chain's two separate chunked scans (AGC, PLL) with one
-pass and no HBM intermediates -- the "fused chain scan" of SURVEY.md
-section 7's pallas/ plan. Equivalence is pinned against
-kernels/am_backend.am_backend_exact.
+Layout: the chunks are stored time-major, (chunk, 1 + NL) with lane j in
+column j + 1 and a zero column 0. Because chunk >= warmup, lane j's
+warmup window is the tail of the previous lane's chunk (column j), so no
+window array is materialized. Per lane, a 0/1 flag says whether a
+warmup exists (chunk index > 0) and a valid length masks the zero-padded
+time tail of each stream's last chunk, so the final state of that lane
+is exact and no tail rescan is needed.
+
+The two LINEAR stages (DC tracker, de-emphasis) stay outside: they are
+first-order filters of vr with no feedback into the loop, whose memory
+exceeds any practical warmup, so they run exactly as blocked scans
+(kernels/iir.first_order_apply_blocked).
 """
 
 from __future__ import annotations
 
-import numpy as np
+from functools import partial
+
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..kernels import agc as kagc
-from ..kernels.am_backend import (
-    AmBackendParams, AmBackendState, FrontState, front_exact,
-    front_sample_step, linear_tail,
-)
 from ..kernels.agc import AgcState
+from ..kernels.am_backend import AmBackendParams, FrontState, front_sample_step
 from ..kernels.pll import PllState
-from .math import patan2
 
-LANES = 128
-
-
-def _make_kernel(params: AmBackendParams):
-    """The params argument only shapes the pytree; all values reach the
-    kernel as traced operands through the scal SMEM ref."""
-
-    def kernel(scal_ref, wre_ref, wim_ref, xre_ref, xim_ref,
-               g0, y2p0, mode0, timer0, th0, fr0, ts_ref,
-               vr_ref, modes_ref, gN, y2pN, modeN, timerN, thN, frN):
-        p = AmBackendParams(
-            agc=kagc.AgcParams(
-                alpha=scal_ref[0], locked=scal_ref[1] > 0.5,
-                squelch=scal_ref[2] > 0.5, threshold=scal_ref[3],
-                timeout=scal_ref[4].astype(jnp.int32), scale=scal_ref[5]),
-            pll_alpha=scal_ref[6], pll_beta=scal_ref[7],
-            use_pll=scal_ref[8], dc_rho=scal_ref[9], use_dc=scal_ref[10],
-            inv_mod=scal_ref[11], deemph_b0=scal_ref[12], deemph_a=scal_ref[13],
-        )
-        W = wre_ref.shape[0]
-        S = xre_ref.shape[0]
-        # warmup validity is a prefix property: lane l's chunk has some
-        # number of real history samples, i.e. warmup step t is valid iff
-        # t >= t_start[l]. A (1, LANES) i32 operand instead of a
-        # (W, LANES) mask keeps VMEM flat -- the difference between
-        # fitting 16M-sample blocks or not -- and, computed by the caller,
-        # lets lanes carry chunks of DIFFERENT streams (the batched
-        # multi-channel front), where the chunk index within a stream is
-        # not derivable from the lane index alone.
-        t_start = ts_ref[...]  # (1, LANES)
-
-        def warm_body(t, st):
-            xr = wre_ref[t, :][None, :]
-            xi = wim_ref[t, :][None, :]
-            v = t >= t_start
-            st2, _ = front_sample_step(p, st, xr, xi, atan2=patan2)
-            return jax.tree.map(lambda a2, b2: jnp.where(v, a2, b2), st2, st)
-
-        st = FrontState(AgcState(g0[...], y2p0[...], mode0[...], timer0[...]),
-                        PllState(th0[...], fr0[...]))
-        st = jax.lax.fori_loop(0, W, warm_body, st)
-
-        def main_body(t, st):
-            xr = xre_ref[t, :][None, :]
-            xi = xim_ref[t, :][None, :]
-            st2, (vr, mode) = front_sample_step(p, st, xr, xi, atan2=patan2)
-            vr_ref[t, :] = vr[0, :]
-            modes_ref[t, :] = mode[0, :]
-            return st2
-
-        st = jax.lax.fori_loop(0, S, main_body, st)
-        gN[...] = st.agc.g
-        y2pN[...] = st.agc.y2p
-        modeN[...] = st.agc.sq_mode
-        timerN[...] = st.agc.sq_timer
-        thN[...] = st.pll.theta
-        frN[...] = st.pll.freq
-
-    return kernel
+LANES = 32   # lanes per program: one warp, one lane per thread
+UNROLL = 8   # steps per loop iteration: their loads issue together
 
 
-def front_chunked_pallas(params: AmBackendParams, state: FrontState, x,
-                         chunk: int = 1024, *, warmup: int,
-                         interpret: bool = False):
-    """Batched chunk-parallel AGC+PLL front in one Pallas VMEM kernel.
+def _params_vector(p: AmBackendParams):
+    return jnp.stack([
+        p.agc.alpha, p.agc.locked.astype(jnp.float32),
+        p.agc.squelch.astype(jnp.float32), p.agc.threshold,
+        p.agc.timeout.astype(jnp.float32), p.agc.scale,
+        p.pll_alpha, p.pll_beta, p.use_pll,
+        jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0),
+        jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0),
+        jnp.float32(0.0)]).astype(jnp.float32)   # 16: a power of two
 
-    x: (C, L) complex64 -- C independent streams (receiver-bank channels)
-    with per-stream carried state (FrontState leaves shaped (C,)). Lanes
-    carry (stream, chunk) pairs: stream c's chunk i lands on lane
-    c*nchunks + i, so one kernel launch runs every chunk of every channel
-    in parallel; per-lane warmup windows re-derive chunk entry states from
-    each stream's own history (kernels/am_backend.front_chunked is the
-    XLA twin). Returns (FrontState (C,), (vr (C, L) f32, modes (C, L) i32)).
-    """
-    from ..kernels.am_backend import front_exact
+
+def _kernel(scal_ref, xr_ref, xi_ref, warm_ref, nval_ref,
+            g0, y2p0, mode0, timer0, th0, fr0,
+            vr_ref, modes_ref, gN, y2pN, modeN, timerN, thN, frN,
+            *, chunk: int, warmup: int):
+    s = [scal_ref[i] for i in range(9)]
+    p = AmBackendParams(
+        agc=kagc.AgcParams(alpha=s[0], locked=s[1] > 0.5, squelch=s[2] > 0.5,
+                           threshold=s[3], timeout=s[4].astype(jnp.int32),
+                           scale=s[5]),
+        pll_alpha=s[6], pll_beta=s[7], use_pll=s[8],
+        dc_rho=None, use_dc=None, inv_mod=None, deemph_b0=None,
+        deemph_a=None)
+    base = pl.program_id(0) * LANES
+    lanes = pl.ds(base, LANES)
+    # column of lane j is j + 1; column j holds the previous chunk
+    own, prev = pl.ds(base + 1, LANES), pl.ds(base, LANES)
+    warm_ok = warm_ref[lanes] > 0
+    nval = nval_ref[lanes]
+    st = FrontState(AgcState(g0[lanes], y2p0[lanes], mode0[lanes],
+                             timer0[lanes]),
+                    PllState(th0[lanes], fr0[lanes]))
+
+    def keep(ok, new, old):
+        return jax.tree.map(lambda a, b: jnp.where(ok, a, b), new, old)
+
+    def warm_body(k, st):
+        t0 = k * UNROLL
+        rows = [(xr_ref[chunk - warmup + t0 + u, prev],
+                 xi_ref[chunk - warmup + t0 + u, prev]) for u in range(UNROLL)]
+        for xr, xi in rows:
+            st2, _ = front_sample_step(p, st, xr, xi)
+            st = keep(warm_ok, st2, st)
+        return st
+
+    def main_body(k, st):
+        t0 = k * UNROLL
+        rows = [(xr_ref[t0 + u, own], xi_ref[t0 + u, own])
+                for u in range(UNROLL)]
+        for u, (xr, xi) in enumerate(rows):
+            st2, (vr, mode) = front_sample_step(p, st, xr, xi)
+            vr_ref[t0 + u, lanes] = vr
+            modes_ref[t0 + u, lanes] = mode
+            st = keep(t0 + u < nval, st2, st)
+        return st
+
+    st = lax.fori_loop(0, warmup // UNROLL, warm_body, st)
+    st = lax.fori_loop(0, chunk // UNROLL, main_body, st)
+    gN[lanes] = st.agc.g
+    y2pN[lanes] = st.agc.y2p
+    modeN[lanes] = st.agc.sq_mode
+    timerN[lanes] = st.agc.sq_timer
+    thN[lanes] = st.pll.theta
+    frN[lanes] = st.pll.freq
+
+
+def _front_call(scal, xr, xi, warm, nval, init, *, chunk, warmup,
+                interpret):
+    nl = nval.shape[0]
+    f32 = lambda shape: jax.ShapeDtypeStruct(shape, jnp.float32)
+    i32 = lambda shape: jax.ShapeDtypeStruct(shape, jnp.int32)
+    out_shape = (f32((chunk, nl)), i32((chunk, nl)),
+                 f32((nl,)), f32((nl,)), i32((nl,)), i32((nl,)),
+                 f32((nl,)), f32((nl,)))
+    return pl.pallas_call(
+        partial(_kernel, chunk=chunk, warmup=warmup),
+        out_shape=out_shape,
+        grid=(nl // LANES,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+        name="am_front_chunked",
+    )(scal, xr, xi, warm, nval, *init)
+
+
+def front_chunked_pallas(params: AmBackendParams, state: FrontState, x, *,
+                         chunk: int, warmup: int):
+    """Batched chunk-parallel AGC+PLL front in one Pallas kernel.
+
+    x: (C, L) complex64 -- C independent streams with per-stream carried
+    state (FrontState leaves shaped (C,)). Same contract as vmapping
+    kernels/am_backend.front_chunked over the streams: blocks of at most
+    chunk + warmup samples run exactly, longer ones as warmup-chunk
+    lanes. Compiled through Triton on CUDA and run by the Pallas
+    interpreter on CPU (pallas.on_platform). Returns
+    (FrontState (C,), (vr (C, L) f32, modes (C, L) i32))."""
     C, L = x.shape
     if L <= chunk + warmup:
-        return jax.vmap(lambda s, xs: front_exact(params, s, xs))(state, x)
+        chunk, warmup = -(-L // UNROLL) * UNROLL, 0
+    if warmup > chunk or chunk % UNROLL or warmup % UNROLL:
+        raise ValueError(f"need warmup <= chunk, both multiples of {UNROLL};"
+                         f" got warmup={warmup}, chunk={chunk}")
     nchunks = -(-L // chunk)
-    pad = nchunks * chunk - L
     nl = C * nchunks
-    nlanes = -(-nl // LANES) * LANES
-    xp = jnp.pad(x, ((0, 0), (0, pad)))            # (C, nchunks*chunk)
-    xc = jnp.pad(xp.reshape(nl, chunk), ((0, nlanes - nl), (0, 0))).T
-    # per-stream warmup windows: zeros precede each stream's first sample
-    wpad = jnp.pad(xp, ((0, 0), (warmup, 0)))
-    widx = (jnp.arange(nchunks) * chunk)[:, None] + jnp.arange(warmup)[None, :]
-    wwin = wpad[:, widx].reshape(nl, warmup)       # (C*nchunks, warmup)
-    wwin = jnp.pad(wwin, ((0, nlanes - nl), (0, 0))).T
-    # warmup validity start per lane: chunk i of any stream has
-    # min(warmup, i*chunk) samples of real history
-    ci = jnp.pad(jnp.tile(jnp.arange(nchunks), C), (0, nlanes - nl))
-    tstart = (warmup - jnp.minimum(warmup, ci * chunk)).astype(
-        jnp.int32)[None, :]
+    NL = -(-nl // LANES) * LANES
+    xp = jnp.pad(x, ((0, 0), (0, nchunks * chunk - L))).reshape(nl, chunk)
+    xt = jnp.pad(xp, ((0, NL - nl), (0, 0))).T            # (chunk, NL)
+    xt = jnp.pad(xt, ((0, 0), (1, 0)))                     # zero column 0
+    ci = jnp.arange(NL) % nchunks                          # chunk index
+    real = jnp.arange(NL) < nl
+    warm = (real & (ci > 0)).astype(jnp.int32)
+    nval = jnp.where(real, jnp.clip(L - ci * chunk, 0, chunk), 0
+                     ).astype(jnp.int32)
 
-    scal = jnp.stack([
-        params.agc.alpha, params.agc.locked.astype(jnp.float32),
-        params.agc.squelch.astype(jnp.float32), params.agc.threshold,
-        params.agc.timeout.astype(jnp.float32), params.agc.scale,
-        params.pll_alpha, params.pll_beta, params.use_pll,
-        params.dc_rho, params.use_dc, params.inv_mod,
-        params.deemph_b0, params.deemph_a,
-    ])
+    def lanes_of(v, dtype):
+        return jnp.pad(jnp.repeat(jnp.asarray(v, dtype), nchunks),
+                       (0, NL - nl))
 
-    def bvec(v, dtype):
-        r = jnp.repeat(jnp.asarray(v, dtype), nchunks)  # lane c*nchunks+i
-        return jnp.pad(r, (0, nlanes - nl))[None, :]
-
-    init_vecs = [
-        bvec(state.agc.g, jnp.float32), bvec(state.agc.y2p, jnp.float32),
-        bvec(state.agc.sq_mode, jnp.int32), bvec(state.agc.sq_timer, jnp.int32),
-        bvec(state.pll.theta, jnp.float32), bvec(state.pll.freq, jnp.float32),
-    ]
-
-    grid = (nlanes // LANES,)
-    col = lambda i: (0, i)
-    mat = lambda shape: pl.BlockSpec(shape, col, memory_space=pltpu.VMEM)
-    vec = pl.BlockSpec((1, LANES), col, memory_space=pltpu.VMEM)
-    out_shapes = (
-        jax.ShapeDtypeStruct((chunk, nlanes), jnp.float32),   # vr
-        jax.ShapeDtypeStruct((chunk, nlanes), jnp.int32),     # modes
-        jax.ShapeDtypeStruct((1, nlanes), jnp.float32),       # g
-        jax.ShapeDtypeStruct((1, nlanes), jnp.float32),       # y2p
-        jax.ShapeDtypeStruct((1, nlanes), jnp.int32),         # mode
-        jax.ShapeDtypeStruct((1, nlanes), jnp.int32),         # timer
-        jax.ShapeDtypeStruct((1, nlanes), jnp.float32),       # theta
-        jax.ShapeDtypeStruct((1, nlanes), jnp.float32),       # freq
-    )
-    res = pl.pallas_call(
-        _make_kernel(params),
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  mat((warmup, LANES)), mat((warmup, LANES)),
-                  mat((chunk, LANES)), mat((chunk, LANES)),
-                  vec, vec, vec, vec, vec, vec, vec],
-        out_specs=(mat((chunk, LANES)), mat((chunk, LANES)),
-                   vec, vec, vec, vec, vec, vec),
-        out_shape=out_shapes,
-        interpret=interpret,
-    )(scal, wwin.real.astype(jnp.float32), wwin.imag.astype(jnp.float32),
-      xc.real.astype(jnp.float32), xc.imag.astype(jnp.float32),
-      *init_vecs, tstart)
+    init = (lanes_of(state.agc.g, jnp.float32),
+            lanes_of(state.agc.y2p, jnp.float32),
+            lanes_of(state.agc.sq_mode, jnp.int32),
+            lanes_of(state.agc.sq_timer, jnp.int32),
+            lanes_of(state.pll.theta, jnp.float32),
+            lanes_of(state.pll.freq, jnp.float32))
+    from . import on_platform
+    res = on_platform(
+        partial(_front_call, chunk=chunk, warmup=warmup),
+        _params_vector(params), xt.real.astype(jnp.float32),
+        xt.imag.astype(jnp.float32), warm, nval, init)
     vr_t, modes_t = res[0], res[1]
-    gN, y2pN, modeN, timerN, thN, frN = res[2:]
     vr = vr_t.T[:nl].reshape(C, nchunks * chunk)[:, :L]
-    modes = modes_t.T[:nl].reshape(C, nchunks * chunk)[:, :L].astype(jnp.int32)
-
+    modes = modes_t.T[:nl].reshape(C, nchunks * chunk)[:, :L]
     last = jnp.arange(C) * nchunks + (nchunks - 1)
-    front = FrontState(
-        agc=AgcState(gN[0, last], y2pN[0, last], modeN[0, last],
-                     timerN[0, last]),
-        pll=PllState(thN[0, last], frN[0, last]))
-    if pad:
-        # last chunk of every stream was zero-padded: re-derive each
-        # stream's carried state exactly from its unpadded tail, starting
-        # from the last chunk's (warmup-derived) entry state
-        prev = last - 1
-        st0 = FrontState(
-            agc=AgcState(gN[0, prev], y2pN[0, prev], modeN[0, prev],
-                         timerN[0, prev]),
-            pll=PllState(thN[0, prev], frN[0, prev]))
-        front, _ = jax.vmap(lambda s, xs: front_exact(params, s, xs))(
-            st0, x[:, (nchunks - 1) * chunk:])
+    gN, y2pN, modeN, timerN, thN, frN = (v[last] for v in res[2:])
+    front = FrontState(AgcState(gN, y2pN, modeN, timerN), PllState(thN, frN))
     return front, (vr, modes)
-
-
-def am_backend_chunked_pallas(params: AmBackendParams, state: AmBackendState,
-                              x, chunk: int = 1024, *, warmup: int,
-                              interpret: bool = False):
-    """Fused back end over a 1-D complex block. Feedback core in the
-    Pallas kernel (a C=1 batch of front_chunked_pallas); DC tracker +
-    de-emphasis applied exactly afterwards as block-parallel first-order
-    scans. Returns (state, (pcm, modes))."""
-    from ..kernels.am_backend import am_backend_exact
-    n = x.shape[0]
-    if n <= chunk + warmup:
-        return am_backend_exact(params, state, x)
-    st1 = jax.tree.map(lambda v: jnp.asarray(v)[None],
-                       FrontState(state.agc, state.pll))
-    front, (vr, modes) = front_chunked_pallas(
-        params, st1, x[None, :], chunk=chunk, warmup=warmup,
-        interpret=interpret)
-    front = jax.tree.map(lambda v: v[0], front)
-    # exact linear tail: DC tracker + de-emphasis as associative scans
-    (dc_last, de_last), pcm = linear_tail(params, state.dc, state.deemph,
-                                          vr[0])
-    new_state = AmBackendState(agc=front.agc, pll=front.pll,
-                               dc=dc_last, deemph=de_last)
-    return new_state, (pcm, modes[0])

@@ -1,5 +1,5 @@
 """Mesh / sharding / halo-exchange runtime (the new L-1 layer with no
-counterpart in the reference; SURVEY.md section 1 TPU mapping)."""
+counterpart in the reference; SURVEY.md section 1)."""
 
 from .mesh import CHANNEL_AXIS, TIME_AXIS, bank_sharding, make_mesh, replicated
 from .am import ShardedAMReceiver

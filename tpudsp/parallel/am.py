@@ -57,32 +57,14 @@ class SAMState(NamedTuple):
     deemph: jnp.ndarray     # f32 de-emphasis carry
 
 
-def _sharded_am_step(taps, amb, state: SAMState, iq_loc, *, offsets, Q: int,
-                     nj_loc: int, warmup: int, b0: float, a: float,
-                     halo: str = "ppermute"):
+def _sharded_am_step(taps, amb, state: SAMState, iq_loc, *, Q: int,
+                     nj_loc: int, warmup: int, b0: float, a: float):
     """shard_map body over the time axis. iq_loc: (N_loc,) local slice —
     or (N_loc, 2) raw wire samples (int16/uint8, taps carrying the wire
     scale; the kf-sample input halo then rides the ppermute at wire
-    width).
-
-    halo='async' runs the fused front end through the compute-overlapped
-    RDMA kernel (pallas/halo_async.py): the per-phase window offsets are
-    pre-folded into offset-padded taps (see ShardedAMReceiver), so the P
-    rational-resampler phases become P 'channels' of the bank front with
-    a shared stride-Q window grid and the kf-sample input halo rides the
-    in-kernel ring instead of a ppermute."""
+    width)."""
     kf = state.rs_tail.shape[0]
-    if halo == "async":
-        from ..pallas import enabled
-        from ..pallas.halo_async import bank_front_async
-        tre, tim = taps  # (P, Kc2, Q) offset-padded, tim = zeros
-        yp = bank_front_async(
-            iq_loc, state.rs_tail, tre, tim, Q, nj_loc, TIME_AXIS,
-            lax.axis_size(TIME_AXIS), interpret=not enabled())
-        y48 = jnp.stack([yp[r] for r in range(yp.shape[0])],
-                        axis=1).reshape(-1)
-        new_tail = jnp.concatenate([state.rs_tail, iq_loc])[-kf:]
-    elif iq_loc.ndim == 2:  # raw wire-format slice
+    if iq_loc.ndim == 2:  # raw wire-format slice
         from .halo import left_halo_rows
         tail_loc = left_halo_rows(iq_loc, kf, TIME_AXIS, state.rs_tail)
         if iq_loc.dtype == jnp.uint8:
@@ -121,21 +103,14 @@ class ShardedAMReceiver:
     for 2 Msps -> 48 kHz) so each shard owns an integral output range."""
 
     def __init__(self, cfg: AMConfig = AMConfig(), mesh: Mesh = None,
-                 block_len: int = 1_000_000, halo: str = "ppermute",
-                 check_vma: bool = True, input_format: str = "c64"):
+                 block_len: int = 1_000_000, input_format: str = "c64"):
         from ..chains.am import _rational
         if mesh is None:
             raise ValueError("ShardedAMReceiver needs a mesh with a "
                              f"'{TIME_AXIS}' axis")
-        if halo not in ("ppermute", "async"):
-            raise ValueError(f"unknown halo {halo!r} "
-                             "(use 'ppermute' or 'async')")
         if input_format not in ("c64", "i16", "u8"):
             raise ValueError(f"unknown input_format {input_format!r} "
                              "(use 'c64', 'i16' or 'u8')")
-        if input_format != "c64" and halo == "async":
-            raise ValueError("halo='async' runs the complex64 ring kernel; "
-                             "wire-format ingest uses halo='ppermute'")
         self.input_format = input_format
         pq = _rational(cfg.rate)
         if pq is None:
@@ -150,7 +125,6 @@ class ShardedAMReceiver:
         self.block_len = block_len
         n_loc = block_len // T
         nj_loc = n_loc // Q
-        offsets = [(r * Q) // P_ for r in range(P_)]
         warmup = warmup_for(agc_alpha=cfg.agc_bandwidth,
                             pll_bw=kam.PLL_BW if cfg.carrier else None)
         if nj_loc * P_ < warmup:
@@ -163,20 +137,12 @@ class ShardedAMReceiver:
                 f"{int(np.ceil(warmup / cfg.rate)) * T} or fewer time shards")
 
         def _design():
-            # reuse the single-chip build for taps and the fused plan;
-            # all eager constant creation stays on the host backend
-            # (utils/hostbuild.py)
+            # reuse the single-chip build for taps and the fused plan
             params, st0, _ = am_build(cfg, block_len, input_format)
             amb = kab.make_params(params.agc, cfg.modulation,
                                   params.deemph_b0, params.deemph_a,
                                   carrier=cfg.carrier)
-            if halo == "async":
-                # the taps come offset-folded from build() (fold_offsets):
-                # the P resampler phases already share the bank front
-                # kernel's stride-Q window grid; imaginary taps are zero
-                tre = jnp.asarray(params.taps_fused)
-                taps = (tre, jnp.zeros_like(tre))
-            elif input_format == "u8":
+            if input_format == "u8":
                 taps = (params.taps_fused, params.u8_dc)
             else:
                 taps = params.taps_fused
@@ -194,8 +160,7 @@ class ShardedAMReceiver:
         params, self._taps, amb, self.state = host_build(_design)
         self.n_out = int(round(block_len * cfg.rate))
         self._amb = amb
-        body = partial(_sharded_am_step, offsets=offsets, Q=Q, nj_loc=nj_loc,
-                       warmup=warmup, halo=halo,
+        body = partial(_sharded_am_step, Q=Q, nj_loc=nj_loc, warmup=warmup,
                        b0=float(params.deemph_b0), a=float(params.deemph_a))
         state_in = SAMState(
             rs_tail=P(), front=jax.tree.map(lambda _: P(), self.state.front),
@@ -211,7 +176,6 @@ class ShardedAMReceiver:
                       jax.tree.map(lambda _: P(), amb),
                       state_in, P(TIME_AXIS)),
             out_specs=(state_out, P(None, TIME_AXIS)),
-            check_vma=check_vma,
         )
 
         def step(taps, amb, state, iq):

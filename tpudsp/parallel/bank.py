@@ -7,12 +7,12 @@ Shards chains/bank.py's step over a (channel, time) mesh with shard_map:
 - ``time`` axis (SP analog): the shared IQ stream is split in time.
   Three boundary couplings, three collectives:
     1. channel-filter conv: (K1-1)-sample input halo from the left
-       neighbor (ppermute over ICI); leftmost shard uses the carried tail.
+       neighbor (ppermute); leftmost shard uses the carried tail.
     2. FM discriminator: 1-sample baseband halo (same ppermute pattern).
     3. audio conv: (K2-1)-sample baseband halo.
   De-emphasis and the coherent-AM DC tracker are first-order linear
   recurrences across the whole stream: each time shard runs the
-  MXU-blocked local scan (kernels/iir.first_order_apply_blocked) and
+  matmul-blocked local scan (kernels/iir.first_order_apply_blocked) and
   exposes its (a^n_loc, u_total) transition aggregate; an all_gather of
   the T tiny aggregates plus an exclusive double-float prefix gives
   each shard its entry value, applied via the exact first-order algebra
@@ -52,10 +52,9 @@ def _first_order_time_sharded_blocked(b0: float, a: float, y0, x_local):
     coherent-AM DC tracker (rho = 0.9995), whose plain-f32 cross-shard
     scan floors at ~86 dB (FIDELITY.md). Same formulation as the
     single-chip chains since round 5 (kernels/iir.
-    first_order_apply_blocked: MXU-blocked local prefix with a
+    first_order_apply_blocked: matmul-blocked local prefix with a
     double-float cross-block carry; 122.9 dB isolated vs f64 serial at
-    L=32, ~6% of the df associative scan's HLO -- round-5 VERDICT #4:
-    both sides move together):
+    L=32; the single-chip and sharded chains use one formulation):
 
       1. zero-entry local scan per shard (vmapped blocked scan);
       2. shard transition aggregates (a^{n_loc} from float64 host math,
@@ -150,19 +149,12 @@ def coherent_am_time_sharded(amb, front0, dc0, y1, warmup: int):
 
 
 def sharded_bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConfig,
-                      halo: str = "ppermute", coherent_mode: str = None,
-                      am_idx: tuple = ()):
+                      coherent_mode: str = None, am_idx: tuple = ()):
     """Per-shard body (call under shard_map). iq: local (N_loc,) slice.
     params.taps_*/dtheta/h2 carry a local channel shard; state fields are
-    sharded to match. Returns (new_state, audio_local).
-
-    halo='ppermute' (default) exchanges the channel-filter input halo with
-    lax.ppermute before the front-end matmul; halo='async' overlaps the
-    exchange with the matmul in one Pallas kernel
-    (tpudsp/pallas/halo_async.py: inter-chip RDMA in flight while the
-    interior output tiles compute). TPU-only for multi-axis meshes --
-    interpret mode (CPU) discharges single-named-axis meshes only, so the
-    CPU equivalence pin lives in tests/test_halo_async.py.
+    sharded to match. Returns (new_state, audio_local). The channel-filter
+    input halo comes from the left time neighbour by lax.ppermute before
+    the front-end matmul.
 
     coherent_mode routes cfg.am_coherent in MIXED demod banks (the EP
     composition the reference gets for free from per-radio demod objects,
@@ -183,14 +175,7 @@ def sharded_bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConf
 
     from ..kernels import decimate as kdec
     nj1 = n_loc // D1
-    if halo == "async":
-        from ..pallas import enabled
-        from ..pallas.halo_async import bank_front_async
-        y1m = bank_front_async(
-            iq, state.in_tail, params.taps_re, params.taps_im, D1, nj1,
-            TIME_AXIS, lax.axis_size(TIME_AXIS), interpret=not enabled())
-        X = jnp.concatenate([state.in_tail, iq])  # only the tail is used
-    elif iq.ndim == 2:  # raw wire-format (N_loc, 2) slice
+    if iq.ndim == 2:  # raw wire-format (N_loc, 2) slice
         from .halo import left_halo_rows
         halo_in = left_halo_rows(iq, K1 - 1, TIME_AXIS, state.in_tail)
         X = jnp.concatenate([halo_in, iq])
@@ -285,7 +270,7 @@ def sharded_bank_step(params: BankParams, state: BankState, iq, *, cfg: BankConf
         y1_tail = Yf[:, -(K2s - 1):]
 
     # static coefficients re-derived at trace time (cfg static), so the
-    # de-emphasis runs the same MXU-blocked cross-shard scan as the DC
+    # de-emphasis runs the same matmul-blocked cross-shard scan as the DC
     # tracker (kernels/iir.first_order_apply_blocked locally)
     from ..design import iirdes as _iirdes
     _b0de, _ade = _iirdes.deemphasis_coeffs(cfg.audio_rate)
@@ -321,29 +306,14 @@ class ShardedBank:
     single-chip chains/bank.py bank_step exactly (tested)."""
 
     def __init__(self, cfg: BankConfig, mesh: Mesh, block_len: int,
-                 halo: str = "ppermute", check_vma: bool = True,
                  input_format: str = "c64"):
-        """check_vma: leave shard_map's replication checking ON (default).
-        The one legitimate reason to disable it: pinning halo='async'
-        END-TO-END in interpret mode on CPU, where jax's pallas discharge
-        re-traces the kernel with written-ref reads carrying a different
-        varying-axes set than the first trace saw (the RDMA-received halo
-        is replicated at trace time but varying at discharge), so no
-        static pvary placement satisfies both passes — a jax
-        interpret-mode limitation, not a property of this kernel. On real
-        TPU meshes (Mosaic, no discharge re-trace) the async path traces
-        under full checking."""
-        if halo not in ("ppermute", "async"):
-            raise ValueError(f"unknown halo {halo!r} "
-                             "(use 'ppermute' or 'async')")
         if input_format not in ("c64", "i16", "u8"):
             raise ValueError(f"unknown input_format {input_format!r} "
                              "(use 'c64', 'i16' or 'u8')")
         D = cfg.decim1 * cfg.decim2
         n_time = mesh.shape[TIME_AXIS]
         # a time-only mesh (no channel axis) keeps channels local to every
-        # shard -- needed e.g. for the interpret-mode async-halo pin, whose
-        # remote-DMA discharge supports single-named-axis meshes only
+        # shard
         CA = CHANNEL_AXIS if CHANNEL_AXIS in mesh.axis_names else None
         n_chan = mesh.shape[CHANNEL_AXIS] if CA else 1
         if cfg.nchan % n_chan:
@@ -408,7 +378,7 @@ class ShardedBank:
             front=front_spec, dc=dc_spec,
             y1_tail=P(CA) if has_ssb else None,
         )
-        body = partial(sharded_bank_step, cfg=cfg, halo=halo,
+        body = partial(sharded_bank_step, cfg=cfg,
                        coherent_mode=coherent_mode, am_idx=tuple(am_idx))
         mapped = jax.shard_map(
             body, mesh=mesh,
@@ -424,7 +394,6 @@ class ShardedBank:
                 front=front_out, dc=dc_out,
                 y1_tail=P(CA, TIME_AXIS, None) if has_ssb else None,
             ), P(CA, TIME_AXIS)),
-            check_vma=check_vma,
         )
 
         def step(params, state, iq):

@@ -12,7 +12,7 @@ Factor C = C1 * C2 and write branch p = p1*C2 + p2, channel c = c2*C1 + c1:
 so the C-point transform becomes: C1-point IFFTs batched over p2, a
 twiddle, a transpose, then C2-point IFFTs batched over c1 -- the classic
 four-step/transpose FFT, with the transposes as `all_to_all` collectives
-riding ICI. Combined with the time-sharded input this gives ONE mesh axis
+(NCCL over NVLink on one GPU host). Combined with the time-sharded input this gives ONE mesh axis
 playing both roles:
 
   1. input x time-sharded: each device frames its slice and runs the
@@ -315,7 +315,7 @@ def tp_bank_shard(params, state: TPBankState, x_loc, *,
                 amb, s, xs, chunk=kwarm.chunk_for(w), warmup=w)
         )(fl, y.reshape(c_loc, -1))
         fr = jax.tree.map(lambda v: v.reshape(c1_loc, c2), front_f)
-        # MXU-blocked scan for the rho=0.9995 DC pole (110.6 dB vs
+        # matmul-blocked scan for the rho=0.9995 DC pole (110.6 dB vs
         # f64 serial; matches the single-chip channelizer's formulation)
         from ..kernels.ampmodem import DC_RHO
         dc_f, dct = jax.vmap(

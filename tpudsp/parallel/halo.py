@@ -3,7 +3,7 @@
 
 Overlap-save FIR filtering of a time-sharded stream: each shard needs the
 last (ntaps-1) samples of its left neighbor -- one ppermute over the
-``time`` mesh axis (ICI). The leftmost shard receives the block-level
+``time`` mesh axis. The leftmost shard receives the block-level
 carried tail instead, preserving exact streaming semantics across both
 device boundaries and block boundaries.
 """

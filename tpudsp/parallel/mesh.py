@@ -12,8 +12,10 @@ ML parallelism strategies are first-class:
   warmup-sized halo, which is exactly the on-chip chunked-scan scheme
   lifted to the mesh (tpudsp/kernels/agc.py, pll.py).
 
-Transport is JAX collectives only (psum/ppermute/all_gather) -- ICI within
-a slice, DCN across hosts via jax.distributed (no user transport code).
+Transport is JAX collectives only (psum/ppermute/all_gather/all_to_all
+under shard_map), which XLA hands to NCCL -- NVLink between the cards of
+one host; no user transport code. Every card reaches every other at the
+same rate, so mesh shapes follow the algorithm alone.
 """
 
 from __future__ import annotations
@@ -39,10 +41,7 @@ def to_varying(x, axis_name: str = TIME_AXIS):
                 return v
         except (AttributeError, TypeError):
             pass
-        try:
-            return lax.pcast(v, (axis_name,), to="varying")
-        except AttributeError:  # older jax spelling
-            return lax.pvary(v, (axis_name,))
+        return lax.pcast(v, (axis_name,), to="varying")
 
     return jax.tree.map(one, x)
 

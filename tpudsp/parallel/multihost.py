@@ -1,13 +1,15 @@
 """Multi-host initialization and the wideband scanner (BASELINE config 5).
 
 Transport is JAX's own distributed runtime (SURVEY.md section 2.3: no
-custom NCCL/MPI analog): ``init_distributed`` wraps
-jax.distributed.initialize; once initialized, ``jax.devices()`` spans the
-pod slice and every mesh built by tpudsp/parallel/mesh.py places shards
-across hosts, with XLA routing ppermute/all_gather over ICI within a
-slice and DCN across hosts. Nothing else in the framework is host-count
-aware -- the same ShardedBank / ShardedChannelizer code runs 1-host or
-N-host.
+custom NCCL/MPI analog). On one GPU host, ONE process drives every card:
+``jax.devices()`` already lists them all and XLA routes the collectives
+over NVLink, so no initialization is needed. ``init_distributed`` wraps
+jax.distributed.initialize for several processes (several hosts, or the
+two-process CPU test in tests/test_multihost.py); once initialized,
+``jax.devices()`` spans every process and every mesh built by
+tpudsp/parallel/mesh.py places shards across them. Nothing else in the
+framework is process-count aware -- the same ShardedBank /
+ShardedChannelizer code runs in one process or several.
 
 Scanner (config 5: 1 Gsps synthetic IQ over N >= 2 hosts): the PFB
 channelizer time-sharded with overlap-save boundary exchange -- each time
@@ -38,15 +40,18 @@ from .mesh import TIME_AXIS
 TWO_PI = 2.0 * np.pi
 
 
-def init_distributed(coordinator_address=None, num_processes=None, process_id=None):
-    """Initialize the multi-host runtime (DCN). On single-host setups this
-    is a no-op returning False. Mirrors jax.distributed.initialize's
-    autodetection when args are None."""
+def init_distributed(coordinator_address=None, num_processes=None,
+                     process_id=None, local_device_ids=None):
+    """Initialize the multi-process runtime. Returns False (a no-op) where
+    jax.distributed.initialize cannot run, e.g. with no arguments on a
+    machine that announces no cluster. Where several processes share one
+    host, pass ``local_device_ids`` so each process owns its own card."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
         return True
     except Exception:
@@ -78,7 +83,7 @@ def _channelize_local(Ht, tail_local, x_local, os: int = 1):
 def scanner_step(params, state: DemodBankState, x_local, *, cfg: ChannelizedBankConfig):
     """shard_map body: time-sharded channelize + demod. The (T-1)*C + C-1
     boundary samples come from the left time neighbor (overlap-save
-    exchange over ICI/DCN); the leftmost shard uses the block-carried tail."""
+    exchange); the leftmost shard uses the block-carried tail."""
     from .halo import left_halo, left_halo_rows
     from ..chains.channelizer import _am_indices, _demod_tuple, _is_mixed
     Ht, b0, a, amb, fm_mask = params

@@ -4,7 +4,7 @@ runs every stage on one thread, SURVEY.md section 3.3).
 
 The AM chain splits at its natural compute boundary:
 
-  stage 0 (MXU device):  fused bandpass+resample front end -- blocked
+  stage 0 (device 0):    fused bandpass+resample front end -- blocked
                          matmuls at the 2 Msps input rate;
   stage 1 (VPU device):  AGC -> AmpModem(PLL) -> de-emphasis -- the
                          chunk-parallel feedback scans at the 48 kHz rate.
